@@ -1,6 +1,6 @@
 // Golden-vector generator: exercises the *reference* implementation
 // (headers included read-only from /root/reference) to produce parity
-// fixtures for kmcex_tpu's core layer.  Build & run via tests/golden/regen.sh;
+// fixtures for kmcex's core layer.  Build & run via tests/golden/regen.sh;
 // the emitted JSON (golden_core.json) is committed so tests don't need a
 // compiler.  This file is new code — it only calls the reference API.
 #include <cstdint>

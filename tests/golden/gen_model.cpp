@@ -1,6 +1,6 @@
 // Reference-model harness: builds the *reference* KModel (headers included
 // read-only from /root/reference) from a KMC database and saves it, so tests
-// can compare kmcex_tpu's model files byte-for-byte.  Also supports dumping a
+// can compare kmcex's model files byte-for-byte.  Also supports dumping a
 // database listing as text (mode "list") to validate the Python KMC reader/
 // writer.  New code; only calls the reference API.
 //

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.io import kmc_db
-from kmcex_tpu.model.kmodel import get_model
-from kmcex_tpu.query import annotate
+from kmcex.core import codec
+from kmcex.io import kmc_db
+from kmcex.model.kmodel import get_model
+from kmcex.query import annotate
 
 
 def test_annotate_with_db(tmp_path):
@@ -70,9 +70,9 @@ def test_annotate_single_strand_db(tmp_path):
     canonicalization, matching the vendored GetCountersForRead variants."""
     import numpy as np
 
-    from kmcex_tpu.core import codec
-    from kmcex_tpu.io import kmc_db
-    from kmcex_tpu.query import annotate
+    from kmcex.core import codec
+    from kmcex.io import kmc_db
+    from kmcex.query import annotate
 
     k = 15
     rng = np.random.default_rng(11)

@@ -9,8 +9,8 @@ from collections import Counter
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.io import fastq
+from kmcex.core import codec
+from kmcex.io import fastq
 
 
 def _write_fastq(path, n_reads=400, seed=0, tricky_quals=True):

@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from kmcex_tpu import cli
+from kmcex import cli
 
 
 def _write_fastq(path, n_reads, read_len=60, seed=3):
@@ -76,7 +76,7 @@ def test_cli_kill_and_resume_byte_identical(tmp_path, env):
 
 
 def test_ckpt_fingerprint_mismatch_raises(tmp_path, env):
-    from kmcex_tpu.count.pipeline import count_encode
+    from kmcex.count.pipeline import count_encode
 
     fq = tmp_path / "r.fastq"
     _write_fastq(fq, n_reads=1200)
@@ -95,7 +95,7 @@ def test_ckpt_resume_device_acc_direct(tmp_path, env):
     """count_encode-level resume on the device accumulator, model equality
     against an uninterrupted run (no CLI, sharded variant covered in
     test_sharded)."""
-    from kmcex_tpu.count.pipeline import count_encode
+    from kmcex.count.pipeline import count_encode
 
     fq = tmp_path / "r.fastq"
     _write_fastq(fq, n_reads=2000, seed=11)

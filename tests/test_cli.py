@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from kmcex_tpu.cli import main, parse_parameters
+from kmcex.cli import main, parse_parameters
 
 
 def test_parse_defaults():
@@ -48,8 +48,8 @@ def test_cli_end_to_end(tmp_path):
         assert (model_dir / fn).exists()
 
     # model round-trips and answers
-    from kmcex_tpu.io import kmc_db
-    from kmcex_tpu.model.kmodel import load_model
+    from kmcex.io import kmc_db
+    from kmcex.model.kmodel import load_model
 
     km = load_model(model_dir)
     reader = kmc_db.KMCReader(str(out))
@@ -143,8 +143,8 @@ def test_cli_list_input_ci2_model(tmp_path):
     rc = main(["kmcex", "-k21", "-ci2", "-cs255", f"@{lst}",
                str(tmp_path / "o.res"), str(tmp_path)])
     assert rc == 0
-    from kmcex_tpu.io import kmc_db
-    from kmcex_tpu.model.kmodel import get_model, load_model
+    from kmcex.io import kmc_db
+    from kmcex.model.kmodel import get_model, load_model
 
     km = load_model(tmp_path / "o.res")
     assert km.ci == 2 and km.bf_num == 3

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from kmcex_tpu.core import codec
+from kmcex.core import codec
 
 
 def test_codec_golden(golden_core):

@@ -5,11 +5,11 @@ from collections import Counter
 
 import numpy as np
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.count import extract
-from kmcex_tpu.count.counter import CountAccumulator
-from kmcex_tpu.count.pipeline import count_fastq
-from kmcex_tpu.io import fastq
+from kmcex.core import codec
+from kmcex.count import extract
+from kmcex.count.counter import CountAccumulator
+from kmcex.count.pipeline import count_fastq
+from kmcex.io import fastq
 
 BASES = "ACGT"
 
@@ -158,7 +158,7 @@ def test_wrapped_fasta_matches_unwrapped(tmp_path):
             assert st.reads == len(seqs)
             assert st.bases == sum(len(s) for s in seqs)
     # chunk-seam carry: records straddling 1KB parse chunks lose nothing
-    from kmcex_tpu.io.fastq import _iter_seq_spans, _segment_spans
+    from kmcex.io.fastq import _iter_seq_spans, _segment_spans
 
     got2: Counter = Counter()
     reads2 = bases2 = 0
@@ -195,8 +195,8 @@ def test_native_packed_stream_matches(tmp_path):
     """Native packed segmenter output == byte segmenter + host pack."""
     import numpy as np
 
-    from kmcex_tpu.count.extract import pack_codes_np
-    from kmcex_tpu.io import fastq
+    from kmcex.count.extract import pack_codes_np
+    from kmcex.io import fastq
 
     rng = np.random.default_rng(21)
     bases = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -224,8 +224,8 @@ def test_bitpack_transfer_roundtrip():
     real/pad boundary (sentinel deltas must not corrupt neighbouring lanes)."""
     import jax.numpy as jnp
 
-    from kmcex_tpu import native
-    from kmcex_tpu.count.device_lsm import SENTINEL, _final_stats, _pack_span
+    from kmcex import native
+    from kmcex.count.device_lsm import SENTINEL, _final_stats, _pack_span
 
     rng = np.random.default_rng(9)
     for n_real, size, n_chunks, cs in [(1000, 1024, 4, 1023),
@@ -275,7 +275,7 @@ def test_fused_finalize_stream():
     across ci/cs settings."""
     import jax.numpy as jnp
 
-    from kmcex_tpu.count.device_lsm import DeviceCountAccumulator
+    from kmcex.count.device_lsm import DeviceCountAccumulator
 
     rng = np.random.default_rng(11)
     SEN = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -339,7 +339,7 @@ def test_fasta_joiner_fuzz(tmp_path):
                     if rng.random() < 0.1:
                         f.write(nl)  # stray empty line inside the record
         want = brute_counts(seqs, k)
-        from kmcex_tpu.io.fastq import _iter_seq_spans, _segment_spans
+        from kmcex.io.fastq import _iter_seq_spans, _segment_spans
 
         got: Counter = Counter()
         reads = bases = 0

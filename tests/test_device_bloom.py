@@ -8,17 +8,17 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from kmcex_tpu.count.device_lsm import SENTINEL  # noqa: E402
-from kmcex_tpu.model.bloom import BloomBank  # noqa: E402
-from kmcex_tpu.model.device_bloom import DeviceBloomBuilder  # noqa: E402
-from kmcex_tpu.model.kmodel import get_model  # noqa: E402
+from kmcex.count.device_lsm import SENTINEL  # noqa: E402
+from kmcex.model.bloom import BloomBank  # noqa: E402
+from kmcex.model.device_bloom import DeviceBloomBuilder  # noqa: E402
+from kmcex.model.kmodel import get_model  # noqa: E402
 
 
 def _rand_table(rng, n, k, ci, max_c=9):
     mask = (1 << (2 * k)) - 1
     kmers = np.unique(
         rng.integers(0, mask + 1, size=n, dtype=np.uint64))
-    from kmcex_tpu.core import codec
+    from kmcex.core import codec
 
     kmers = np.unique(codec.canonical_np(kmers, k))
     counts = rng.integers(ci, max_c, size=len(kmers)).astype(np.uint32)
@@ -55,7 +55,7 @@ def test_device_bloom_matches_host(k, ci, nh):
     # membership answers agree too
     probe = np.concatenate([kmers[:200], rng.integers(
         0, 1 << (2 * k), 100, dtype=np.uint64)])
-    from kmcex_tpu.core import codec
+    from kmcex.core import codec
 
     probe = codec.canonical_np(probe, k)
     np.testing.assert_array_equal(
@@ -86,11 +86,11 @@ def test_device_bloom_split_feeds_match():
 
 
 def test_sharded_device_bloom_model_identical(tmp_path):
-    """The mesh-built Bloom bank (per-shard scatter + psum OR-collective)
+    """The mesh-built Bloom bank (per-shard scatter + pmax OR-collective)
     must produce a model byte-identical to the host-bloom build."""
     import os
 
-    from kmcex_tpu.count.pipeline import count_encode
+    from kmcex.count.pipeline import count_encode
     from tests.test_byte_ranges import _write_fastq
 
     fq = tmp_path / "reads.fastq"
@@ -122,9 +122,9 @@ def test_sharded_device_bloom_skipped_when_spilled(tmp_path):
     not engage and the host path must produce the same model."""
     import jax
 
-    from kmcex_tpu.model.device_bloom import ShardedDeviceBloomBuilder
-    from kmcex_tpu.parallel.sharded import ShardedCountAccumulator, make_mesh
-    from kmcex_tpu.count import extract
+    from kmcex.model.device_bloom import ShardedDeviceBloomBuilder
+    from kmcex.parallel.sharded import ShardedCountAccumulator, make_mesh
+    from kmcex.count import extract
 
     mesh = make_mesh(devices=jax.devices("cpu")[:4])
     rng = np.random.default_rng(3)
@@ -150,9 +150,9 @@ def test_sharded_device_bloom_skipped_on_finalize_time_spill(tmp_path):
     counts."""
     import jax
 
-    from kmcex_tpu.count import extract
-    from kmcex_tpu.model.device_bloom import ShardedDeviceBloomBuilder
-    from kmcex_tpu.parallel import sharded
+    from kmcex.count import extract
+    from kmcex.model.device_bloom import ShardedDeviceBloomBuilder
+    from kmcex.parallel import sharded
 
     mesh = sharded.make_mesh(devices=jax.devices("cpu")[:2])
     k, rows, seg = 19, 2, 64
@@ -198,7 +198,7 @@ def test_device_bloom_narrow_cs_clamped_membership(tmp_path):
     membership must match the reference's cs-CLAMPED counters.  Ground
     truth is init_from_pairs fed the clamped table (what the reference's
     clamped database would contain)."""
-    from kmcex_tpu.count.pipeline import count_encode
+    from kmcex.count.pipeline import count_encode
     from tests.test_byte_ranges import _write_fastq
 
     fq = tmp_path / "reads.fastq"
@@ -232,7 +232,7 @@ def test_count_encode_device_bloom_model_identical(tmp_path, ci):
     model to the host-bloom path."""
     import os
 
-    from kmcex_tpu.count.pipeline import count_encode
+    from kmcex.count.pipeline import count_encode
     from tests.test_byte_ranges import _write_fastq  # tiny generator
 
     fq = tmp_path / "reads.fastq"

@@ -4,9 +4,9 @@ import re
 
 import numpy as np
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.count.device_lsm import DeviceCountAccumulator, _merge_runs_kernel
-from kmcex_tpu.count.extract import SENTINEL
+from kmcex.core import codec
+from kmcex.count.device_lsm import DeviceCountAccumulator, _merge_runs_kernel
+from kmcex.count.extract import SENTINEL
 
 
 def test_merge_runs_kernel():
@@ -32,7 +32,7 @@ def test_device_accumulator_matches_numpy():
         codes[rng.random(codes.shape) < 0.03] = 255
         acc.add_batch(codes)
         # reference extraction on host
-        from kmcex_tpu.count.extract import extract_canonical
+        from kmcex.count.extract import extract_canonical
 
         flat = np.asarray(extract_canonical(codes, k)[0])
         all_kmers.append(flat[flat != 0xFFFFFFFFFFFFFFFF])
@@ -47,7 +47,7 @@ def test_packed_extract_matches_unpacked():
     k = 21
     codes = rng.integers(0, 4, size=(32, 96)).astype(np.uint8)
     codes[rng.random(codes.shape) < 0.05] = 255
-    from kmcex_tpu.count.extract import (
+    from kmcex.count.extract import (
         extract_canonical,
         extract_canonical_packed,
         pack_codes_np,
@@ -65,7 +65,7 @@ def test_device_accumulator_packed_matches():
     k = 17
     acc = DeviceCountAccumulator(k)
     acc2 = DeviceCountAccumulator(k)
-    from kmcex_tpu.count.extract import pack_codes_np
+    from kmcex.count.extract import pack_codes_np
 
     for _ in range(3):
         codes = rng.integers(0, 4, size=(64, 80)).astype(np.uint8)
@@ -84,7 +84,7 @@ def test_device_accumulator_tiny_tiers():
     k = 17
     acc = DeviceCountAccumulator(k, raw_tier_elems=2000)
     all_kmers = []
-    from kmcex_tpu.count.extract import extract_canonical
+    from kmcex.count.extract import extract_canonical
 
     for _ in range(9):
         codes = rng.integers(0, 4, size=(16, 80)).astype(np.uint8)
@@ -180,7 +180,7 @@ def test_spill_finalize_stream_matches():
 
 
 def _brute_counts(batches, k):
-    from kmcex_tpu.count.extract import extract_canonical
+    from kmcex.count.extract import extract_canonical
 
     allk = []
     for codes in batches:
@@ -261,7 +261,7 @@ def test_pack_plan_properties():
     maximum of the stat granules they span."""
     import numpy as np
 
-    from kmcex_tpu.count.device_lsm import (
+    from kmcex.count.device_lsm import (
         PACK_SPAN_ELEMS,
         PACK_TAIL_ELEMS,
         _pack_plan,
@@ -301,7 +301,7 @@ def test_checkpoint_resume(tmp_path):
 
     import numpy as np
 
-    from kmcex_tpu.count.device_lsm import DeviceCountAccumulator
+    from kmcex.count.device_lsm import DeviceCountAccumulator
 
     rng = np.random.default_rng(61)
     k = 15

@@ -5,9 +5,9 @@ in test_model_parity.py, so transitivity gives device == reference."""
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.model.kmodel import get_model
-from kmcex_tpu.query.device_model import DeviceKModel
+from kmcex.core import codec
+from kmcex.model.kmodel import get_model
+from kmcex.query.device_model import DeviceKModel
 
 
 def _build(seed, n, k, ci, cs, nh, nb):

@@ -1,8 +1,8 @@
 """Multi-host runtime test: 2 spawned processes, a process-spanning mesh,
 and the hash-routed sharded count running all_to_all ACROSS the process
 boundary (BASELINE config 5's code path, SURVEY.md §5 "distributed
-communication backend" — validated on CPU because pods aren't available
-in CI, exactly like the virtual single-process mesh tests).
+communication backend" — validated on CPU because multi-host GPU
+clusters aren't available in CI, exactly like the virtual single-process mesh tests).
 
 Each worker process forces the CPU platform with 4 virtual devices, joins a
 2-process jax.distributed world (8 global devices), streams its half of the
@@ -33,14 +33,14 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from kmcex_tpu.parallel import distributed
+from kmcex.parallel import distributed
 distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=2, process_id=pid
 )
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.devices()) == 8, len(jax.devices())
 
-from kmcex_tpu.parallel.sharded import ShardedCountAccumulator
+from kmcex.parallel.sharded import ShardedCountAccumulator
 
 mesh = distributed.global_mesh()
 K, SEG_ROWS, SEG_LEN = 7, 4, 24  # 4 rows per device
@@ -74,7 +74,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from kmcex_tpu.parallel import distributed
+from kmcex.parallel import distributed
 distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=2, process_id=pid
 )
@@ -126,7 +126,7 @@ def test_two_process_all_to_all_count(tmp_path):
     # and it matches a single-process brute-force count of the same input
     from collections import Counter
 
-    from kmcex_tpu.core import codec
+    from kmcex.core import codec
 
     rng = np.random.default_rng(123)
     want: Counter = Counter()
@@ -181,7 +181,7 @@ def test_two_process_distributed_count_fastq(tmp_path):
     np.testing.assert_array_equal(r0["counts"], r1["counts"])
 
     # single-process reference count over the same file
-    from kmcex_tpu.count.pipeline import count_fastq
+    from kmcex.count.pipeline import count_fastq
 
     want_k, want_c, _ = count_fastq(str(fq), k=9, ci=1, cs=1023,
                                     seg_len=32, accumulator="host")
@@ -205,19 +205,19 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-from kmcex_tpu.parallel import distributed
+from kmcex.parallel import distributed
 distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=2, process_id=pid
 )
 assert jax.process_count() == 2
 
 # force every sharded tier at tiny scale (disk spill included)
-import kmcex_tpu.parallel.sharded as sh_mod
+import kmcex.parallel.sharded as sh_mod
 sh_mod.ShardedCountAccumulator.RAW_TIER_ELEMS = 4096
 sh_mod.ShardedCountAccumulator.SPILL_THRESHOLD = 8192
 sh_mod.ShardedCountAccumulator.DISK_SPILL_BYTES = 4096
 
-from kmcex_tpu.count.pipeline import count_encode
+from kmcex.count.pipeline import count_encode
 
 db = os.path.join(out_dir, "db") if pid == 0 else None
 km, _, _, stats = count_encode(
@@ -260,8 +260,8 @@ def test_two_process_genome_scale_e2e(tmp_path):
         assert b"OK" in out
 
     # single-process in-RAM reference build of the same file
-    from kmcex_tpu.count.pipeline import count_encode
-    from kmcex_tpu.io import kmc_db
+    from kmcex.count.pipeline import count_encode
+    from kmcex.io import kmc_db
 
     km, kd, cd, _ = count_encode(str(fq), k=9, ci=1, cs=1023, seg_len=32,
                                  batch_segs=64, keep_pairs=True)

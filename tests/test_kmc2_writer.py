@@ -10,9 +10,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec, signature as sig_mod
-from kmcex_tpu.io import kmc_db
-from kmcex_tpu.model.kmodel import get_model
+from kmcex.core import codec, signature as sig_mod
+from kmcex.io import kmc_db
+from kmcex.model.kmodel import get_model
 
 from tests.test_model_parity import ref_harness  # noqa: F401  (fixture)
 
@@ -88,7 +88,7 @@ def test_kmc2_reference_interop(ref_harness, tmp_path):  # noqa: F811
 def test_kmc2_multiword_roundtrip(tmp_path):
     k = 45
     rng = np.random.default_rng(3)
-    from kmcex_tpu.core import codec_mw
+    from kmcex.core import codec_mw
 
     raw = rng.integers(0, 1 << 63, size=(8000, codec_mw.n_words(k)),
                        dtype=np.uint64)

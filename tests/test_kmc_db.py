@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.io import kmc_db
+from kmcex.core import codec
+from kmcex.io import kmc_db
 
 
 def _pairs(seed, n, k):
@@ -88,7 +88,7 @@ def test_quake_mode_roundtrip(tmp_path):
     np.testing.assert_array_equal(got, want)
     # the model layer must refuse quake databases (the reference would feed
     # float bits into its integer encode)
-    from kmcex_tpu.model.kmodel import get_model
+    from kmcex.model.kmodel import get_model
 
     with pytest.raises(ValueError):
         get_model(1, 1023, 7, 5).init(db)
@@ -137,7 +137,7 @@ def test_list_chunks_streaming_equals_list_all(tmp_path):
 def test_streaming_init_equals_in_memory_build(tmp_path):
     """KModel.init streams the DB in bounded chunks; the resulting model
     must be byte-identical to an in-memory init_from_pairs build."""
-    from kmcex_tpu.model.kmodel import get_model
+    from kmcex.model.kmodel import get_model
 
     can, counts = _pairs(17, 20000, 31)
     db = str(tmp_path / "db")

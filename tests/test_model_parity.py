@@ -1,7 +1,7 @@
 """End-to-end parity vs the reference implementation.
 
 Builds the *reference* kmcEx model (compiled read-only from /root/reference
-via tests/golden/gen_model.cpp) and kmcex_tpu's model from the same KMC1
+via tests/golden/gen_model.cpp) and kmcex's model from the same KMC1
 database, then asserts byte equality of header/km.bin/rest.bin and exact
 agreement of kmer_to_occ over present + random queries.  This exercises the
 whole host pipeline: KMC1 writer -> reference reader interop, Bloom bank,
@@ -17,9 +17,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.io import kmc_db
-from kmcex_tpu.model.kmodel import get_model, load_model
+from kmcex.core import codec
+from kmcex.io import kmc_db
+from kmcex.model.kmodel import get_model, load_model
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 REF = "/root/reference"

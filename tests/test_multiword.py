@@ -8,9 +8,9 @@ reference's own uint64 utilities, tools.hpp:63-76)."""
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec_mw
-from kmcex_tpu.io import kmc_db
-from kmcex_tpu.query import annotate
+from kmcex.core import codec_mw
+from kmcex.io import kmc_db
+from kmcex.query import annotate
 
 COMP = str.maketrans("ACGT", "TGCA")
 

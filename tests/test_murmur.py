@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from kmcex_tpu.core.murmur import HASH_SEEDS, murmur64_jnp, murmur64_np, murmur64_py
+from kmcex.core.murmur import HASH_SEEDS, murmur64_jnp, murmur64_np, murmur64_py
 
 
 def test_seed_table():

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from kmcex_tpu.core.occu_bin import OccuBin
+from kmcex.core.occu_bin import OccuBin
 
 
 def test_occu_bin_golden(golden_core):

@@ -8,8 +8,8 @@ same km.bin/rest.bin bytes.
 
 import numpy as np
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.model.kmodel import get_model
+from kmcex.core import codec
+from kmcex.model.kmodel import get_model
 
 
 def _pairs(n, k=31, seed=3):

@@ -5,8 +5,8 @@ hash-modulo-zero, kmodel.hpp:411-418,437-438).  We clamp sizes to >=1 byte."""
 import numpy as np
 import pytest
 
-from kmcex_tpu.core import codec
-from kmcex_tpu.model.kmodel import get_model, load_model
+from kmcex.core import codec
+from kmcex.model.kmodel import get_model, load_model
 
 
 def _pairs(n, k=31, seed=0):

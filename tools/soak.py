@@ -1,16 +1,17 @@
-"""Scale soak on the real TPU: >=10x the bench workload, real spill
+"""Scale soak on the GPU: >=10x the bench workload, real spill
 thresholds, sustained-throughput + tier-transition + peak-RSS record, and
-an independent numpy oracle check of the full table (VERDICT r4 item 4 —
-the closest NA12878-config proxy this single-chip rig allows).
+an independent numpy oracle check of the full table (the closest
+NA12878-config proxy one card allows).
 
 Usage: python tools/soak.py [n_reads] [out_json]
-Writes the JSON artifact (default SOAK_r05.json in the repo root).
+Writes the JSON artifact (default chiprun_out/soak.json).
 """
 
 import json
 import pathlib
 import resource
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
@@ -18,7 +19,7 @@ import numpy as np
 
 N_READS = int(sys.argv[1]) if len(sys.argv) > 1 else 2_000_000
 OUT = pathlib.Path(sys.argv[2]) if len(sys.argv) > 2 else (
-    pathlib.Path(__file__).parent.parent / "SOAK_r05.json")
+    pathlib.Path(__file__).parent.parent / "chiprun_out" / "soak.json")
 GENOME = 20_000_000
 K = 31
 
@@ -30,13 +31,20 @@ def log(m):
 def main():
     import bench
 
-    fq = bench.BENCH_DIR / f"reads_soak_{N_READS}.fastq"
-    bench.BENCH_DIR.mkdir(exist_ok=True)
-    if not fq.exists():
-        log(f"generating soak FASTQ ({N_READS} reads, {GENOME} base genome)")
-        bench.make_fastq(fq, genome_len=GENOME, n_reads=N_READS, seed=2025)
+    card = bench.require_gpu()
+    log(f"card: {card}")
+    with tempfile.TemporaryDirectory(prefix="kmcex_soak_") as d:
+        return soak(pathlib.Path(d) / "reads_soak.fastq", card)
 
-    from kmcex_tpu.count.pipeline import count_encode
+
+def soak(fq: pathlib.Path, card: str) -> int:
+    import bench
+    import chip_smoke
+
+    log(f"generating soak FASTQ ({N_READS} reads, {GENOME} base genome)")
+    bench.make_fastq(fq, genome_len=GENOME, n_reads=N_READS, seed=2025)
+
+    from kmcex.count.pipeline import count_encode
 
     # pass 1 warms this scale's compile shapes; pass 2 is the record
     log("pass 1 (warm) ...")
@@ -58,34 +66,11 @@ def main():
 
     # verification pass (keeps pairs) + independent numpy oracle
     log("verification pass + oracle ...")
-    km2, kmers, counts, _ = count_encode(str(fq), k=K, ci=1, cs=1023,
-                                         num_hash=7, num_bit=5)
-    code = np.full(256, 255, np.uint8)
-    for i, b in enumerate(b"ACGT"):
-        code[b] = i
-    seqs = []
-    with open(fq, "rb") as f:
-        for ln, line in enumerate(f):
-            if ln % 4 == 1:
-                seqs.append(code[np.frombuffer(line.strip(), np.uint8)])
-    parts = []
-    for a in range(0, len(seqs), 50000):
-        mat = np.stack(seqs[a : a + 50000])
-        w = np.lib.stride_tricks.sliding_window_view(mat, K, axis=1)
-        valid = (w < 4).all(axis=2)
-        wv = w.reshape(-1, K)[valid.reshape(-1)].astype(np.uint64)
-        fwd = np.zeros(len(wv), np.uint64)
-        rc = np.zeros(len(wv), np.uint64)
-        for j in range(K):
-            fwd = (fwd << np.uint64(2)) | wv[:, j]
-            rc = (rc << np.uint64(2)) | (np.uint64(3) ^ wv[:, K - 1 - j])
-        parts.append(np.minimum(fwd, rc))
-    allk = np.concatenate(parts)
-    del parts, seqs
-    want_k, want_c = np.unique(allk, return_counts=True)
+    _, kmers, counts, _ = count_encode(str(fq), k=K, ci=1, cs=1023,
+                                      num_hash=7, num_bit=5)
+    want_k, want_c = chip_smoke.oracle_pairs(str(fq), K, 1023)
     ok_keys = np.array_equal(kmers, want_k)
-    ok_counts = np.array_equal(counts.astype(np.uint64),
-                               np.minimum(want_c, 1023).astype(np.uint64))
+    ok_counts = np.array_equal(counts.astype(np.uint32), want_c)
     log(f"oracle: keys {'OK' if ok_keys else 'MISMATCH'}, counts "
         f"{'OK' if ok_counts else 'MISMATCH'} ({len(want_k)} distinct)")
 
@@ -93,6 +78,7 @@ def main():
     ok_model = km.total_kmer_count == len(want_k)
 
     artifact = {
+        "card": card,
         "workload": {"n_reads": N_READS, "read_len": 150,
                      "genome_len": GENOME, "k": K, "err_rate": 0.002,
                      "seed": 2025},
@@ -110,6 +96,7 @@ def main():
                    "counts_exact": bool(ok_counts),
                    "model_total_matches": bool(ok_model)},
     }
+    OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(artifact, indent=1) + "\n")
     log(f"wrote {OUT}")
     return 0 if (ok_keys and ok_counts and ok_model) else 1
